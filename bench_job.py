@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Job-level benchmark: the PRODUCT, not just the kernel.
 
-Runs a production-shape job through engine.run_job_batched on the
-default accelerator: strip-ROI pairs (top/bottom, the production output
+Runs a production-shape job through engine.run_job_batched on the GPU:
+strip-ROI pairs (top/bottom, the production output
 mode of gen_cross_file_list defaults), ``random_points`` output, PNG
 decode from disk through the prefetching native loader, journal on, and
 a mock render-ws HTTP sink (full JSON serialization, no network — this
@@ -13,9 +13,10 @@ src/optflow.cpp:87-171) — this is that loop, timed end to end.
 Prints ONE JSON line: job-level MP-pairs/s (megapixels of solved ROI
 area per second) plus the StageTimer decode/solve/postprocess/sink
 breakdown, and a correctness gate on the emitted point matches against
-the known synthetic inter-section shift.
+the known synthetic inter-section shift. Exits non-zero unless JAX's
+default backend is a GPU, and when the gate fails.
 
-Usage: python bench_job.py [--pairs N] [--quick]
+Usage: python bench_job.py [--pairs N]
 """
 
 import argparse
@@ -23,6 +24,7 @@ import json
 import os
 import pathlib
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,22 +39,24 @@ CACHE_TAG = "v1"
 
 
 def _stack_dir(n_frames: int) -> pathlib.Path:
-    return pathlib.Path(
-        os.environ.get("OPTFLOW_TPU_BENCH_STACK", "/tmp/optflow_bench_stack")
-    ) / f"{CACHE_TAG}_{n_frames}_{SRC_H}x{SRC_W}"
+    root = os.environ.get("OPTFLOW_BENCH_STACK") or os.path.join(
+        tempfile.gettempdir(), "optflow_bench_stack"
+    )
+    return pathlib.Path(root) / f"{CACHE_TAG}_{n_frames}_{SRC_H}x{SRC_W}"
 
 
-def gen_stack(n_frames: int) -> pathlib.Path:
+def gen_stack(n_frames: int, d: pathlib.Path = None) -> pathlib.Path:
     """Synthesize a FIB-SEM-like section stack as 8-bit grayscale PNGs.
 
     Section z is a crop of one large base texture at offset
     z * (DY_STEP, DX_STEP) plus small per-section noise, so the true
     flow between sections (z, z+dz) is the constant dz * (DX, DY)
     (up to the noise), letting the bench gate the emitted point
-    matches. Cached on disk across runs."""
-    from PIL import Image
+    matches. Cached on disk across runs (``d`` defaults to a directory
+    under the temp dir, keyed by the geometry)."""
+    from optflow.core.imgio import write_png
 
-    d = _stack_dir(n_frames)
+    d = d or _stack_dir(n_frames)
     done = d / "DONE"
     if done.exists():
         return d
@@ -78,7 +82,7 @@ def gen_stack(n_frames: int) -> pathlib.Path:
         sec = ndi.map_coordinates(tex, [gy, gx], order=3, mode="nearest")
         sec = sec + rng.normal(0.0, 1.5, sec.shape)  # per-section noise
         arr = np.clip(sec, 0, 255).astype(np.uint8)
-        Image.fromarray(arr, mode="L").save(d / f"sec_{z:04d}.png")
+        write_png(str(d / f"sec_{z:04d}.png"), arr)
     done.write_text("ok")
     return d
 
@@ -130,14 +134,15 @@ class MockRenderSink:
         return True
 
 
-def gate_matches(sink: MockRenderSink, job: dict) -> dict:
-    """End-to-end correctness: emitted q - p displacements must match
-    the known synthetic shift dz * (DX_STEP, DY_STEP) in full-res px."""
+def gate_matches(match_sets, job: dict) -> dict:
+    """End-to-end correctness: emitted q - p displacements (Render-schema
+    match dicts, as a sink receives them) must match the known synthetic
+    shift dz * (DX_STEP, DY_STEP) in full-res px."""
     by_name = {}
     for im in job["images"]:
         by_name[(im["pId"], im["qId"])] = im["dz"]
     errs = []
-    for ms in sink.match_sets:
+    for ms in match_sets:
         dz = by_name.get((ms["pId"], ms["qId"]))
         m = ms["matches"]
         if dz is None or not m["w"]:
@@ -153,11 +158,11 @@ def gate_matches(sink: MockRenderSink, job: dict) -> dict:
         return {"match_err_px": None, "match_ok": False}
     err = float(np.mean(np.concatenate(errs)))
     # full-res px; the solve itself is gated at 0.5 px at scale 0.5
-    return {"match_err_px": round(err, 4), "match_ok": err <= 1.0}
+    return {"match_err_px": err, "match_ok": err <= 1.0}
 
 
 def run(job: dict, sink: MockRenderSink) -> dict:
-    from optflow_tpu.engine.batch_runner import run_job_batched
+    from optflow.engine.batch_runner import run_job_batched
 
     t0 = time.perf_counter()
     stats = run_job_batched(job, sink=sink)
@@ -168,59 +173,22 @@ def run(job: dict, sink: MockRenderSink) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=512)
-    ap.add_argument("--quick", action="store_true",
-                    help="tiny-geometry smoke (CPU/CI plumbing check)")
     args = ap.parse_args()
-    if args.quick:
-        global SRC_H, SRC_W, STRIP, CACHE_TAG
-        SRC_H, SRC_W, STRIP, CACHE_TAG = 128, 256, 32, "q1"
-        args.pairs = 12
 
-    import jax
-
-    from optflow_tpu.utils.cache import enable_persistent_cache
+    from bench import device_record, require_gpu
+    from optflow.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
-    platform = jax.devices()[0].platform
+    dev = require_gpu()
 
     n_pairs = args.pairs
     n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
     stack = gen_stack(n_frames)
 
-    import tempfile
-
     tmp = tempfile.mkdtemp(prefix="optflow_bench_job_")
     # warmup job: compile every program shape (levels, prealign buckets)
     warm = build_job(stack, n_frames, 32, f"{tmp}/warm.jsonl", "warm")
     run(warm, MockRenderSink())
-    # warm the exact-repair ladder too (the wide-contract kernel set,
-    # repair bucket shape): a long-lived production process pays this
-    # once; without it a single mid-job shift-contract violation eats
-    # minutes of first-execution cost on this platform
-    try:
-        import jax.numpy as jnp
-
-        from optflow_tpu.core.config import TVL1Params
-        from optflow_tpu.ops.tvl1_pallas import (
-            pallas_enabled,
-            tvl1_flow_batched_pallas,
-        )
-
-        if pallas_enabled():
-            h = STRIP
-            w = int(SRC_W * SCALE)
-            rng = np.random.default_rng(0)
-            z0 = jnp.asarray(
-                rng.uniform(20, 235, (4, h, w)).astype(np.float32)
-            )
-            _ = np.asarray(
-                tvl1_flow_batched_pallas(
-                    z0, z0, TVL1Params(), s_max=16
-                )
-            )[0, 0, 0]
-    except Exception as e:  # warmup must never sink the bench
-        print(f"bench_job: repair-ladder warmup failed: {e!r}",
-              file=sys.stderr)
 
     job = build_job(stack, n_frames, n_pairs, f"{tmp}/job.jsonl", "job")
     sink = MockRenderSink()
@@ -230,19 +198,19 @@ def main():
     wall = stats["wall"]
     pairs = stats["pairs"]
     mp_s = pairs * mp_per_pair / wall
-    gate = gate_matches(sink, job)
+    gate = gate_matches(sink.match_sets, job)
 
     result = {
         "metric": "job-level MP-pairs/s (run_job_batched: decode->solve->"
                   "sample->sink, strip ROIs, random_points)",
-        "value": round(mp_s, 4),
+        "value": mp_s,
         "unit": "MP-pairs/s",
-        "vs_baseline": round(mp_s, 4),
-        "platform": platform,
+        "vs_baseline": mp_s,
+        "device": device_record(dev),
         "pairs": pairs,
-        "pairs_per_s": round(pairs / wall, 4),
-        "wall_s": round(wall, 4),
-        "mp_per_pair": round(mp_per_pair, 4),
+        "pairs_per_s": pairs / wall,
+        "wall_s": wall,
+        "mp_per_pair": mp_per_pair,
         "stage_breakdown_s": {
             k: v for k, v in stats["timing"].items() if k.endswith("_s")
         },
@@ -254,6 +222,8 @@ def main():
         **gate,
     }
     print(json.dumps(result))
+    if not gate["match_ok"]:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -1,25 +1,29 @@
 #!/usr/bin/env python
-"""Bench matrix: the driver's BASELINE.json configs beyond bench.py's
-headline number. Each mode prints one JSON line; results are committed as
-BENCHES_r{N}.jsonl artifacts each round.
+"""Bench matrix: the BASELINE.json configs beyond bench.py's headline
+number. Each mode prints one JSON line naming its device.
 
 Modes:
-  features  — config #3: feature detect+match+RANSAC pre-align feeding
-              TV-L1, batched end-to-end on the default accelerator.
-  roofline  — per-iteration kernel economics at the production strip
-              level: Pallas vs XLA level solver, fixed iteration count,
-              with VPU-flops and HBM-bandwidth utilization estimates.
-  tiled     — config #4 (structure): tiled large-section solve with halo
-              windows on the 8-device virtual CPU mesh; agreement vs the
-              monolithic solve + throughput.
-  scaling   — config #5 (structure): delegates to bench_scaling.py.
+  features          — config #3: feature detect+match+RANSAC pre-align
+                      feeding TV-L1, batched end-to-end.
+  features_chained  — config #3 in the production pair pattern (frames
+                      shared between consecutive pairs).
+  tiled             — config #4: tiled large-section solve with halo
+                      windows over every visible card; agreement vs the
+                      monolithic one-card solve.
+  scaling           — config #5: bench_scaling.measure() in this process.
 
-Usage: python bench_matrix.py [features roofline tiled scaling] [--out f]
+Every mode runs on the GPU: the script exits non-zero on any other
+backend.
+
+Usage: python bench_matrix.py [features features_chained tiled scaling]
+       [--out f]
 """
 
 import json
 import sys
 import time
+
+from bench import device_record
 
 
 def _emit(rec, out):
@@ -82,17 +86,15 @@ def bench_features(out):
     import jax.numpy as jnp
     import numpy as np
 
-    from optflow_tpu.core.config import (
+    from optflow.core.config import (
         MatchParams, OrbParams, SurfParams, SURF_TYPE, TVL1Params,
     )
-    from optflow_tpu.features.align import find_alignment_batched_device
-    from optflow_tpu.ops.tvl1 import tvl1_flow_batched
-    from optflow_tpu.ops.warp import affine_warp
+    from optflow.features.align import find_alignment_batched_device
+    from optflow.ops.tvl1 import tvl1_flow_batched
+    from optflow.ops.warp import affine_warp_shift
 
     # 16-pair batches: the production granularity (5000 pairs/job file
-    # stream through the engine in device batches); 4-pair batches left
-    # ~30 ms of per-measurement sync and the coarse-level stacking
-    # unamortized (tools/probes/r4_feature_stages.py)
+    # stream through the engine in device batches)
     H, W, BATCH = 256, 1024, 16
     params = TVL1Params()
     orb = OrbParams()
@@ -103,8 +105,6 @@ def bench_features(out):
     i0 = jnp.asarray(i0_np)
     i1 = jnp.asarray(i1_np)
 
-    from optflow_tpu.ops.warp import affine_warp_shift
-
     @jax.jit
     def prealign(a, b):
         res = find_alignment_batched_device(b, a, SURF_TYPE, orb, surf, mp)
@@ -112,8 +112,6 @@ def bench_features(out):
         return warped, res.n_good, res.affine, jnp.sum(ncl)
 
     def fn(a, b):
-        # pre-align jitted; the TV-L1 solve orchestrated eagerly (the TPU
-        # production path — see ops/tvl1_pallas.py)
         warped, n_good, aff, ncl = prealign(a, b)
         flow = tvl1_flow_batched(a, warped, params)
         return flow, jnp.sum(n_good), aff, ncl
@@ -164,42 +162,31 @@ def bench_features(out):
         e2e.append(float(np.sqrt(ex ** 2 + ey ** 2).mean()))
     e2e_err = float(np.mean(e2e))
 
-    def fn_nosync(a, b):
-        # steady-state variant: no per-call repair-mask sync (bench.py
-        # convention — production pipelines batches; the gated first
-        # call above ran with the full repair semantics)
-        warped, n_g, aff2, _ncl = prealign(a, b)
-        return tvl1_flow_batched(a, warped, params,
-                                 repair_contract=False)
-
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        f_d, _g, _a, _n = fn(i0, i1)
-        _ = float(f_d[0, 0, 0, 0])
+        jax.block_until_ready(fn(i0, i1))
         times.append(time.perf_counter() - t0)
     dt_lat = float(np.median(times))
-    # steady state: pipeline R batches, sync once (the production
+    # steady state: pipeline R batches, wait once (the production
     # regime: the engine streams 16-pair groups back to back)
-    _ = float(fn_nosync(i0, i1)[0, 0, 0, 0])
     R = 5
     t0 = time.perf_counter()
-    outs = [fn_nosync(i0, i1) for _ in range(R)]
-    _ = float(outs[-1][0, 0, 0, 0])
+    jax.block_until_ready([fn(i0, i1) for _ in range(R)])
     dt = (time.perf_counter() - t0) / R
     _emit({
-        "metric": "features+TV-L1 MP-pairs/s per chip (BASELINE config #3)",
-        "value": round(BATCH * H * W / 1e6 / dt, 4),
+        "metric": "features+TV-L1 MP-pairs/s per card (BASELINE config #3)",
+        "value": BATCH * H * W / 1e6 / dt,
         "unit": "MP-pairs/s",
-        "vs_baseline": round(BATCH * H * W / 1e6 / dt, 4),
-        "platform": jax.devices()[0].platform,
-        "seconds_per_batch": round(dt, 4),
-        "latency_s_per_batch": round(dt_lat, 4),
+        "vs_baseline": BATCH * H * W / 1e6 / dt,
+        "device": device_record(jax.devices()[0]),
+        "seconds_per_batch": dt,
+        "latency_s_per_batch": dt_lat,
         "good_matches_total": n_good,
         "warp_clamped_px": n_clamped,
-        "e2e_epe_px": round(e2e_err, 4),
+        "e2e_epe_px": e2e_err,
         "e2e_ok": e2e_err <= 0.5,
-        "affine_corner_err_px": round(float(np.mean(corner_errs)), 3),
+        "affine_corner_err_px": float(np.mean(corner_errs)),
         "shape": [BATCH, H, W],
     }, out)
 
@@ -217,12 +204,12 @@ def bench_features_chained(out):
     import scipy.ndimage as ndi
 
     from bench import make_pair, DX, DY
-    from optflow_tpu.core.config import (
+    from optflow.core.config import (
         MatchParams, OrbParams, SurfParams, SURF_TYPE, TVL1Params,
     )
-    from optflow_tpu.features.align import find_alignment_indexed
-    from optflow_tpu.ops.tvl1 import tvl1_flow_batched
-    from optflow_tpu.ops.warp import affine_warp_shift
+    from optflow.features.align import find_alignment_indexed
+    from optflow.ops.tvl1 import tvl1_flow_batched
+    from optflow.ops.warp import affine_warp_shift
 
     H, W, NPAIRS = 256, 1024, 16
     params = TVL1Params()
@@ -250,188 +237,92 @@ def bench_features_chained(out):
     def fn(fr):
         warped, n_good = prealign(fr)
         flow = tvl1_flow_batched(fr[:NPAIRS], warped, params)
-        return flow[0, 0, 0, 0], jnp.sum(n_good)
+        return flow, jnp.sum(n_good)
 
-    s, g = fn(frames_d)
-    _ = float(s)
+    _, g = fn(frames_d)
     n_good = int(g)
-
-    def fn_nosync(fr):
-        warped, _ng = prealign(fr)
-        return tvl1_flow_batched(fr[:NPAIRS], warped, params,
-                                 repair_contract=False)[0, 0, 0, 0]
-
-    _ = float(fn_nosync(frames_d))
     R = 5
     t0 = time.perf_counter()
-    outs = [fn_nosync(frames_d) for _ in range(R)]
-    _ = float(outs[-1])
+    jax.block_until_ready([fn(frames_d) for _ in range(R)])
     dt = (time.perf_counter() - t0) / R
     _emit({
         "metric": "features+TV-L1 chained z-stack MP-pairs/s (production frame reuse)",
-        "value": round(NPAIRS * H * W / 1e6 / dt, 4),
+        "value": NPAIRS * H * W / 1e6 / dt,
         "unit": "MP-pairs/s",
-        "vs_baseline": round(NPAIRS * H * W / 1e6 / dt, 4),
-        "platform": jax.devices()[0].platform,
-        "seconds_per_batch": round(dt, 4),
+        "vs_baseline": NPAIRS * H * W / 1e6 / dt,
+        "device": device_record(jax.devices()[0]),
+        "seconds_per_batch": dt,
         "good_matches_total": n_good,
         "unique_frames": NPAIRS + 1,
         "shape": [NPAIRS, H, W],
     }, out)
 
 
-def bench_roofline(out):
-    """Fixed-work per-iteration economics at the production strip level."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bench import make_pair, DX, DY
-    from optflow_tpu.core.config import TVL1Params
-    from optflow_tpu.ops.tvl1 import tvl1_flow_level
-    from optflow_tpu.ops.tvl1_pallas import tvl1_flow_level_pallas
-
-    H, W = 256, 1024
-    ITER, WARPS = 300, 1
-    p = TVL1Params(iterations=ITER, warps=WARPS, epsilon=0.0)
-    a_np, b_np = make_pair(H, W, DX, DY, seed=0)
-    a, b = jnp.asarray(a_np), jnp.asarray(b_np)
-    u = jnp.zeros((H, W), jnp.float32)
-
-    platform = jax.devices()[0].platform
-    rec = {
-        "metric": "level-solver roofline (256x1024, 300 fixed iterations)",
-        "platform": platform,
-        "px_iterations": H * W * ITER * WARPS,
-    }
-    FLOPS_PER_PX_ITER = 70  # primal+dual updates incl. sqrt/div weights
-    XLA_BYTES_PER_PX_ITER = 16 * 4 * 2  # ~16 state arrays read+written
-
-    xla_fn = jax.jit(lambda x, y: tvl1_flow_level(x, y, u, u, p)[0].sum())
-
-    def pallas_fn(x, y):
-        # eager: the pallas level call is its own jitted program
-        return tvl1_flow_level_pallas(x, y, u, u, p)[0].sum()
-
-    # the PRODUCTION kernel: fused whole-level (warp + sweeps +
-    # iterations in one launch), exact geometry, batch 16 so the
-    # per-level program overhead amortizes as in the headline bench
-    from optflow_tpu.ops.tvl1_pallas import _fused_level_fn
-
-    NB = 16
-    ab = jnp.broadcast_to(a, (NB, H, W))
-    bb = jnp.broadcast_to(b, (NB, H, W))
-    ub = jnp.zeros((NB, H, W), jnp.float32)
-    fused_step = _fused_level_fn(NB, (H, W), None, p, False, 8)
-
-    def fused_fn(x, y):
-        u1, _, _, _, _ = fused_step(ab, bb, ub, ub)
-        return u1.sum()
-
-    for name, fn in (("xla", xla_fn), ("pallas_legacy", pallas_fn),
-                     ("pallas_fused", fused_fn)):
-        _ = float(fn(a, b))
-        scale = NB if name == "pallas_fused" else 1
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            _ = float(fn(a, b))
-            times.append(time.perf_counter() - t0)
-        dt = float(np.median(times)) / scale
-        gflops = rec["px_iterations"] * FLOPS_PER_PX_ITER / dt / 1e9
-        rec[name] = {
-            "seconds_per_image": round(dt, 4),
-            "px_iter_per_s_G": round(rec["px_iterations"] / dt / 1e9, 3),
-            "est_vpu_gflops": round(gflops, 1),
-        }
-        if name == "xla":
-            rec[name]["est_hbm_gbs"] = round(
-                rec["px_iterations"] * XLA_BYTES_PER_PX_ITER / dt / 1e9, 1
-            )
-    rec["fused_speedup_vs_xla"] = round(
-        rec["xla"]["seconds_per_image"]
-        / rec["pallas_fused"]["seconds_per_image"], 2
-    )
-    rec["value"] = rec["fused_speedup_vs_xla"]
-    rec["unit"] = "x over XLA level solver (fused kernel)"
-    rec["vs_baseline"] = rec["fused_speedup_vs_xla"]
-    _emit(rec, out)
-
-
 def bench_tiled(out):
-    """Tiled halo solve vs monolithic on the virtual 8-device CPU mesh."""
-    import os
-
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "")
-        + " --xla_force_host_platform_device_count=8"
-    ).strip()
+    """Tiled halo solve over every visible card vs the monolithic
+    one-card solve (BASELINE config #4). The section is 1024 px per card
+    tall, so each card holds a realistic 1024-row block."""
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
     from bench import make_pair, DX, DY
-    from optflow_tpu.core.config import TVL1Params
-    from optflow_tpu.dist.mesh import make_pair_mesh
-    from optflow_tpu.dist.tiled import default_halo, tiled_tvl1_flow
-    from optflow_tpu.ops.tvl1 import tvl1_flow
+    from optflow.core.config import TVL1Params
+    from optflow.dist.mesh import make_pair_mesh
+    from optflow.dist.tiled import default_halo, tiled_tvl1_flow
+    from optflow.ops.tvl1 import tvl1_flow
 
-    H, W = 512, 512  # a full-section shape, sharded 8 ways by rows
-    p = TVL1Params(nscales=3, warps=2, iterations=50)
+    n = len(jax.devices())
+    H, W = 1024 * n, 1024
+    p = TVL1Params()
     a_np, b_np = make_pair(H, W, DX, DY, seed=0)
-    a, b = jnp.asarray(a_np), jnp.asarray(b_np)
-    mesh = make_pair_mesh(n_pairs_axis=1, n_rows_axis=8)
+    mesh = make_pair_mesh(n_pairs_axis=1, n_rows_axis=n)
 
-    mono = np.asarray(tvl1_flow(a, b, p))
+    mono = np.asarray(jax.jit(lambda a, b: tvl1_flow(a, b, p))(a_np, b_np))
+    tiled = np.asarray(tiled_tvl1_flow(jnp.asarray(a_np), jnp.asarray(b_np),
+                                       p, mesh))
     t0 = time.perf_counter()
-    tiled = np.asarray(tiled_tvl1_flow(a, b, p, mesh))
+    tiled_tvl1_flow(jnp.asarray(a_np), jnp.asarray(b_np), p,
+                    mesh).block_until_ready()
     dt = time.perf_counter() - t0
     diff = np.abs(tiled - mono)[:, 8:-8]
     _emit({
-        "metric": "tiled halo solve vs monolithic (BASELINE config #4, virtual mesh)",
-        "value": round(float(diff.max()), 4),
+        "metric": "tiled halo solve vs monolithic (BASELINE config #4)",
+        "value": float(diff.max()),
         "unit": "max |tiled - monolithic| px (every row incl. seams)",
-        "vs_baseline": round(0.25 / max(float(diff.max()), 1e-9), 2),
-        "platform": "cpu-virtual-mesh",
+        "vs_baseline": 0.25 / max(float(diff.max()), 1e-9),
+        "device": device_record(jax.devices()[0]),
         "halo_rows": default_halo(p, 8.0, H, W),
-        "seconds": round(dt, 2),
+        "seconds": dt,
         "shape": [H, W],
     }, out)
 
 
 def main():
-    from optflow_tpu.utils.cache import enable_persistent_cache
+    from bench import require_gpu
+    from optflow.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
+    require_gpu()
     argv = sys.argv[1:]
     out = None
     if "--out" in argv:
         i = argv.index("--out")
         out = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-    modes = argv or ["features", "features_chained", "roofline"]
+    modes = argv or ["features", "features_chained"]
+    runners = {
+        "features": bench_features,
+        "features_chained": bench_features_chained,
+        "tiled": bench_tiled,
+        "scaling": lambda o: _emit(__import__("bench_scaling").measure(), o),
+    }
+    unknown = [m for m in modes if m not in runners]
+    if unknown:
+        raise SystemExit(f"unknown mode(s) {unknown}; choose from "
+                         f"{sorted(runners)}")
     for m in modes:
-        if m == "features":
-            bench_features(out)
-        elif m == "features_chained":
-            bench_features_chained(out)
-        elif m == "roofline":
-            bench_roofline(out)
-        elif m == "tiled":
-            bench_tiled(out)
-        elif m == "scaling":
-            import subprocess
-
-            r = subprocess.run(
-                [sys.executable, "bench_scaling.py"],
-                capture_output=True, text=True,
-            )
-            line = r.stdout.strip().splitlines()[-1] if r.stdout else "{}"
-            _emit(json.loads(line), out)
-        else:
-            print(f"unknown mode {m}", file=sys.stderr)
+        runners[m](out)
 
 
 if __name__ == "__main__":

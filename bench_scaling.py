@@ -1,51 +1,37 @@
 #!/usr/bin/env python
-"""Scaling-efficiency benchmark for the sharded pair scheduler.
+"""Scaling-efficiency benchmark for the sharded pair scheduler's solve.
 
-Measures image-pairs/s of the data-parallel batched solve at mesh sizes
-1, 2, 4, 8 and reports efficiency vs linear scaling — the driver target is
->= 0.9 linear to 2+ hosts (BASELINE.md). Only one physical TPU chip is
-reachable in this harness, so by default this runs on a virtual CPU device
-mesh (JAX_PLATFORMS config + xla_force_host_platform_device_count), which
-validates the sharding structure and collective-free pair parallelism;
-absolute numbers are CPU numbers and labeled as such.
+Measures image-pairs/s of the data-parallel batched solve (shard_map over
+the ``pairs`` axis, what PairScheduler dispatches) on 1, 2, 4, ... of the
+visible cards with constant work per card, and reports efficiency against
+linear scaling (the BASELINE.md target is >= 0.9). Runs on the GPU only.
 
 Prints one JSON line.
+
+Usage: python bench_scaling.py
 """
 
 import json
-import os
 import time
 
 
-def main():
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "")
-        + " --xla_force_host_platform_device_count=8"
-    ).strip()
-    import sys
-
+def measure() -> dict:
+    """Pairs/s and efficiency per mesh size, in this process (the caller
+    owns the cards; no second process is started)."""
     import jax
-
-    # Default: virtual CPU mesh (only one physical TPU chip is reachable in
-    # this harness, and probing jax.devices() would latch the backend
-    # before we could switch). Pass --tpu on a real multi-chip slice.
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
-    import jax.numpy as jnp
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from optflow_tpu.core.config import TVL1Params
-    from optflow_tpu.dist.mesh import make_pair_mesh
-    from optflow_tpu.ops.tvl1 import tvl1_flow_batched
+    from bench import DX, DY, device_record, make_pair
+    from optflow.core.config import TVL1Params
+    from optflow.dist.mesh import make_pair_mesh
+    from optflow.ops.tvl1 import tvl1_flow_batched
 
     n_dev = len(jax.devices())
-    platform = jax.devices()[0].platform
-    params = TVL1Params(nscales=3, warps=3, iterations=60, epsilon=0.0)
-    H, W = 128, 256
-    per_dev = 2
-    rng = np.random.default_rng(0)
+    params = TVL1Params()  # reference defaults
+    H, W = 256, 1024  # production strip
+    per_dev = 16  # production device batch
+    a, b = make_pair(H, W, DX, DY, seed=0)
 
     results = {}
     sizes = [s for s in (1, 2, 4, 8) if s <= n_dev]
@@ -53,170 +39,46 @@ def main():
         mesh = make_pair_mesh(n_pairs_axis=n, n_rows_axis=1,
                               devices=jax.devices()[:n])
         batch = per_dev * n
-        i0 = jnp.asarray(
-            (rng.random((batch, H, W)) * 255).astype(np.float32)
-        )
-        i1 = jnp.asarray(
-            (rng.random((batch, H, W)) * 255).astype(np.float32)
-        )
-        sharding = NamedSharding(mesh, P("pairs", None, None))
-        i0 = jax.device_put(i0, sharding)
-        i1 = jax.device_put(i1, sharding)
-        # the production path: shard_map over the pairs axis, natively
-        # batched solver per shard (what PairScheduler dispatches)
+        sharding = NamedSharding(mesh, P("pairs"))
+        i0 = jax.device_put(np.broadcast_to(a, (batch, H, W)), sharding)
+        i1 = jax.device_put(np.broadcast_to(b, (batch, H, W)), sharding)
         solve = jax.jit(
             jax.shard_map(
-                lambda a, b: tvl1_flow_batched(a, b, params),
+                lambda x, y: tvl1_flow_batched(x, y, params),
                 mesh=mesh,
                 in_specs=(P("pairs"), P("pairs")),
                 out_specs=P("pairs"),
                 check_vma=False,
             )
         )
-        out = solve(i0, i1)
-        _ = float(out[0, 0, 0, 0])
+        solve(i0, i1).block_until_ready()  # compile
         R = 3
         t0 = time.perf_counter()
-        x = i0
-        for _ in range(R):
-            out = solve(x, i1)
-            x = i0 + out[..., 0] * 1e-12
-        _ = float(out[0, 0, 0, 0])
+        jax.block_until_ready([solve(i0, i1) for _ in range(R)])
         dt = (time.perf_counter() - t0) / R
         results[n] = batch / dt
 
     base = results[sizes[0]]
-    effs = {
-        str(n): round(results[n] / (base * n), 4) for n in sizes
-    }
-    # Dispatch-structure measurement (r3 verdict #3): host time to ENQUEUE
-    # the eager per-device dispatch with CONSTANT per-device work. The
-    # per-device loops run from a thread pool; flat enqueue time vs device
-    # count shows the dispatch path does not serialize on one Python
-    # thread (compute itself still contends for shared physical cores on
-    # the virtual mesh — that is what the efficiency numbers above carry).
-    import optflow_tpu.dist.scheduler as sched_mod
-    import optflow_tpu.ops.tvl1_pallas as tp
-    from optflow_tpu.dist.scheduler import PairScheduler
-
-    tp_saved = tp.pallas_enabled
-    solve_saved = sched_mod.tvl1_flow_batched
-    tp.pallas_enabled = lambda: True  # force the eager per-device path
-
-    # stub solver: a trivial jitted program, so the measurement is the
-    # DISPATCH structure (threaded device_put + launch), not solver
-    # compute — on the virtual CPU mesh the real solver runs interpret
-    # Pallas whose execution would pollute the enqueue time
-    @jax.jit
-    def _stub(a, b):
-        return jnp.stack([a * 0.5 + b * 0.5, a - b], axis=-1)
-
-    sched_mod.tvl1_flow_batched = lambda a, b, p, **kw: _stub(a, b)
-    try:
-        dispatch_ms = {}
-        dispatch_seq_ms = {}
-        for n in sizes:
-            mesh = make_pair_mesh(n_pairs_axis=n, n_rows_axis=1,
-                                  devices=jax.devices()[:n])
-            sched = PairScheduler(mesh, params, max_batch=per_dev * n)
-            dispatch, _ = sched._solver_for((H, W))
-            i0s = (rng.random((per_dev * n, H, W)) * 255).astype(np.float32)
-            i1s = (rng.random((per_dev * n, H, W)) * 255).astype(np.float32)
-            def drain(flows):
-                # eager items are (flow, mask, a, b) tuples (r4 lazy
-                # violation capture); shard_map items are arrays
-                for f in flows:
-                    _ = np.asarray(f[0] if isinstance(f, tuple) else f)
-
-            flows = dispatch(i0s, i1s)  # warm (compiles)
-            drain(flows)
-            ts = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                flows = dispatch(i0s, i1s)  # returns when ENQUEUED
-                ts.append(time.perf_counter() - t0)
-                drain(flows)  # drain
-            dispatch_ms[str(n)] = round(
-                float(np.median(ts)) * 1e3, 2
-            )
-            # same dispatch WITHOUT the thread pool: if threaded ==
-            # sequential, the per-device enqueue cost is GIL-BOUND host
-            # work (tracing/arg prep/device_put submission) that threads
-            # cannot overlap — the quantity the projection model uses
-            import jax as _jax
-
-            devices = jax.devices()[:n]
-            a = jnp.asarray(i0s)
-            ts = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                outs = []
-                for d_i, dev in enumerate(devices):
-                    lo, hi = d_i * per_dev, (d_i + 1) * per_dev
-                    x = _jax.device_put(i0s[lo:hi], dev)
-                    y = _jax.device_put(i1s[lo:hi], dev)
-                    outs.append(_stub(x, y))
-                ts.append(time.perf_counter() - t0)
-                _ = [np.asarray(o) for o in outs]
-            dispatch_seq_ms[str(n)] = round(
-                float(np.median(ts)) * 1e3, 2
-            )
-    finally:
-        tp.pallas_enabled = tp_saved
-        sched_mod.tvl1_flow_batched = solve_saved
-
-    # ---- multi-chip projection (r4 verdict #5) -------------------------
-    # The enqueue curve grows ~linearly with device count DESPITE the
-    # thread pool because the per-device cost is GIL-bound host Python
-    # (shown by threaded ~= sequential above): threads overlap only the
-    # device-side blocking. The model: per-batch host enqueue e_ms per
-    # device serializes; device compute T_d runs in parallel and the
-    # enqueue of batch k+1 overlaps batch k's device time (the scheduler
-    # pipelines chunks). Steady-state efficiency at N chips:
-    #   eff(N) ~= min(1, T_d / (N * e_ms))
-    # With the real chip's measured T_d (~75 ms/16-pair batch, bench.py)
-    # and e_ms from the 1-device row (pool overhead excluded), the >=0.9
-    # target holds until N ~= T_d / e_ms chips.
-    t_d_ms = 75.0  # measured device ms per 16-pair batch (bench.py, v5e)
-    e_ms = dispatch_ms.get("1", 1.0)
-    projection = {
-        "model": "eff(N) = min(1, T_device / (N * e_enqueue))",
-        "t_device_ms_per_batch": t_d_ms,
-        "e_enqueue_ms_per_device": e_ms,
-        "projected_efficiency": {
-            str(nn): round(min(1.0, t_d_ms / (nn * e_ms)), 4)
-            for nn in (4, 8, 16, 32, 64)
-        },
-        "chips_at_0.9_efficiency": int(t_d_ms / (0.9 * e_ms)),
-    }
-
-    out = {
-        "metric": "pairs/s scaling efficiency (sharded pair scheduler)",
+    effs = {str(n): results[n] / (base * n) for n in sizes}
+    return {
+        "metric": "pairs/s scaling efficiency (sharded pair solve)",
         "value": effs[str(sizes[-1])],
-        "unit": f"fraction of linear at {sizes[-1]} devices",
-        "vs_baseline": round(effs[str(sizes[-1])] / 0.9, 4),
-        "platform": platform,
-        "devices": n_dev,
-        "pairs_per_s": {str(n): round(results[n], 3) for n in sizes},
+        "unit": f"fraction of linear at {sizes[-1]} cards",
+        "vs_baseline": effs[str(sizes[-1])] / 0.9,
+        "device": device_record(jax.devices()[0]),
+        "shape_per_card": [per_dev, H, W],
+        "pairs_per_s": {str(n): results[n] for n in sizes},
         "efficiency": effs,
-        # host ms to enqueue the threaded per-device eager dispatch of a
-        # stub program, constant per-device work: ~0.65 ms/device of
-        # GIL-bound host work (device_put + launch); the thread pool
-        # overlaps the device-side portion. At the real chip's measured
-        # ~0.9 ms/program dispatch this projects to single-digit ms of
-        # host overhead for an 8-chip batch vs ~75 ms of solve.
-        "eager_dispatch_enqueue_ms": dispatch_ms,
-        "eager_dispatch_enqueue_sequential_ms": dispatch_seq_ms,
-        "scaling_projection": projection,
-        "note": (
-            "virtual CPU devices share physical cores: efficiency here "
-            "validates sharding structure only; the >=0.9 target applies "
-            "to real multi-chip meshes"
-            if platform == "cpu"
-            else "real accelerator mesh"
-        ),
     }
-    print(json.dumps(out))
+
+
+def main():
+    from bench import require_gpu
+    from optflow.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
+    require_gpu()
+    print(json.dumps(measure()))
 
 
 if __name__ == "__main__":

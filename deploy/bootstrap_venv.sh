@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Clean-environment install + smoke run — the validation layer for the
-# container recipe (optflow_tpu.def). The def file's %post is: install
+# container recipe (optflow.def). The def file's %post is: install
 # deps, `pip install` this repo, prebuild the native loader; its
 # %runscript is `optflow job.json.gz`. This script performs the same
 # sequence against an isolated install prefix and runs a real job
@@ -19,45 +19,45 @@ set -euo pipefail
 REPO="$(cd "$(dirname "$0")/.." && pwd)"
 WORK="${1:-$(mktemp -d)}"
 mkdir -p "$WORK"
-echo "== optflow_tpu install smoke =="
+echo "== optflow install smoke =="
 echo "repo: $REPO  work: $WORK"
 
 echo "-- build wheel (validates pyproject + sdist/wheel packaging)"
 pip wheel --no-build-isolation --no-deps -w "$WORK/dist" "$REPO" 2>&1 | tail -1
-WHEEL="$(ls "$WORK"/dist/optflow_tpu-*.whl)"
+WHEEL="$(ls "$WORK"/dist/optflow-*.whl)"
 echo "wheel: $WHEEL"
 
 echo "-- install into isolated prefix (no network, no deps)"
 pip install --no-index --no-deps --target "$WORK/install" "$WHEEL" 2>&1 | tail -1
 
 echo "-- entry point + import location"
-test -d "$WORK/install/optflow_tpu"
+test -d "$WORK/install/optflow"
 cd "$WORK"  # keep the repo source tree off sys.path[0]
 PYTHONPATH="$WORK/install" python - "$WORK" <<'EOF'
 import sys
-import optflow_tpu
+import optflow
 work = sys.argv[1]
-print("package at", optflow_tpu.__file__)
-assert optflow_tpu.__file__.startswith(f"{work}/install"), \
+print("package at", optflow.__file__)
+assert optflow.__file__.startswith(f"{work}/install"), \
     "imported from source tree, not the install"
 # console entry point declared and resolvable
 import importlib.metadata as md
-eps = md.distribution("optflow_tpu").entry_points
+eps = md.distribution("optflow").entry_points
 console = [e for e in eps if e.group == "console_scripts"]
 assert any(e.name == "optflow" for e in console), console
 print("console_scripts:", [(e.name, e.value) for e in console])
 EOF
 
 echo "-- native loader build (container %post step)"
-make -C "$WORK/install/optflow_tpu/native" 2>&1 | tail -1 \
+make -C "$WORK/install/optflow/native" 2>&1 | tail -1 \
     || echo "native build skipped (toolchain optional)"
 
 echo "-- end-to-end job through the installed package (CPU)"
-python - "$WORK" <<'EOF'
+PYTHONPATH="$WORK/install" python - "$WORK" <<'EOF'
 import json, os, sys
 import numpy as np
 import scipy.ndimage as ndi
-from PIL import Image
+from optflow.core.imgio import write_png
 work = sys.argv[1]
 os.makedirs(f"{work}/imgs", exist_ok=True)
 os.makedirs(f"{work}/out", exist_ok=True)
@@ -65,8 +65,8 @@ rng = np.random.default_rng(0)
 base = ndi.gaussian_filter(rng.standard_normal((64, 96)), 2.0)
 im0 = ((base - base.min()) / np.ptp(base) * 215 + 20).astype(np.uint8)
 im1 = np.roll(im0, 1, axis=1)
-Image.fromarray(im0).save(f"{work}/imgs/a.png")
-Image.fromarray(im1).save(f"{work}/imgs/b.png")
+write_png(f"{work}/imgs/a.png", im0)
+write_png(f"{work}/imgs/b.png", im1)
 job = {
     "style": 1, "scale": 1.0, "output_type": "flow",
     "output_dir": f"{work}/out",
@@ -81,7 +81,7 @@ PYTHONPATH="$WORK/install" python - "$WORK/job.json" <<'EOF'
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
-from optflow_tpu.cli.main import main
+from optflow.cli.main import main
 raise SystemExit(main([sys.argv[1]]))
 EOF
 

@@ -4,4 +4,4 @@
 # Usage: deploy/run_job.sh /path/to/job.json[.gz] [extra CLI args]
 set -euo pipefail
 cd "$(dirname "$0")/.."
-exec python -m optflow_tpu.cli.main "$@"
+exec python -m optflow.cli.main "$@"

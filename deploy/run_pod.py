@@ -1,16 +1,15 @@
 #!/usr/bin/env python
-"""Multi-host TPU pod launcher.
+"""Multi-host launcher.
 
 The reference scales by launching independent Singularity containers per
 job file on an LSF cluster (singularity/janelia_run.sh; SURVEY.md §1 L6).
-The TPU-native equivalent runs ONE logical job across a pod slice: every
-host starts this script (typically via the TPU VM's per-worker exec), they
-join through jax.distributed, build a global (pairs, rows) mesh, and the
-pair scheduler shards the job's pair list across all hosts' devices.
+This launcher runs ONE logical job across several hosts: every host starts
+this script, they join through jax.distributed, build a global
+(pairs, rows) mesh, and the pair scheduler shards the job's pair list
+across all hosts' devices.
 
-Coordinator settings come from flags or the standard TPU environment
-(in a Cloud TPU pod slice jax.distributed.initialize() autodetects; the
-flags are for manual clusters).
+Coordinator settings come from flags, or from JAX_COORDINATOR_ADDRESS
+when the cluster environment provides it.
 
 Usage (per host):
   python deploy/run_pod.py job.json.gz \
@@ -23,7 +22,7 @@ import argparse
 import os
 import sys
 
-# The script is launched by path (one exec per pod worker), so sys.path[0]
+# The script is launched by path (one exec per host), so sys.path[0]
 # is deploy/ — make the checkout importable when the package isn't
 # pip-installed (mirrors the reference container's exec-from-anywhere
 # runscript, singularity/optflow.def:48-49).
@@ -50,7 +49,7 @@ def main(argv=None) -> int:
 
     import os
 
-    from optflow_tpu.utils.cache import enable_persistent_cache
+    from optflow.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
     if ns.platform:
@@ -63,14 +62,13 @@ def main(argv=None) -> int:
             process_id=ns.process_id,
         )
     elif os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        # Cloud TPU pod autodetect path; only attempted when the cluster
-        # env is present (an unconditional initialize() breaks single-host
-        # runs on experimental PJRT plugins).
+        # cluster-provided coordinator; only attempted when the env is
+        # present (an unconditional initialize() fails on a single host)
         jax.distributed.initialize()
 
-    from optflow_tpu.core.config import load_job
-    from optflow_tpu.engine.batch_runner import run_job_batched
-    from optflow_tpu.engine.features_glue import default_aligner
+    from optflow.core.config import load_job
+    from optflow.engine.batch_runner import run_job_batched
+    from optflow.engine.features_glue import default_aligner
 
     args = load_job(ns.filename)
     # Pair solving is embarrassingly parallel (the reference scales the
@@ -84,7 +82,7 @@ def main(argv=None) -> int:
     pid = jax.process_index()
     mesh = None
     if n_proc > 1:
-        from optflow_tpu.dist.mesh import make_pair_mesh
+        from optflow.dist.mesh import make_pair_mesh
 
         args["images"] = args.get("images", [])[pid::n_proc]
         if args.get("journal"):

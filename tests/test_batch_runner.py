@@ -4,10 +4,10 @@ paths, journal integration, and upload semantics."""
 import numpy as np
 import pytest
 
-from optflow_tpu.core.imgio import read_float_tiff
-from optflow_tpu.engine.batch_runner import run_job_batched
-from optflow_tpu.engine.runner import run_job
-from optflow_tpu.sinks.store import JsonlMatchSink
+from optflow.core.imgio import read_float_tiff
+from optflow.engine.batch_runner import run_job_batched
+from optflow.engine.runner import run_job
+from optflow.sinks.store import JsonlMatchSink
 from tests.conftest import make_fibsem_like
 
 FAST_TV = {"nscales": 2, "warps": 2, "iterations": 25}
@@ -85,7 +85,7 @@ def test_batched_features_pairs_batch(tmp_path, rng):
     Production job generation enables features near column boundaries
     (ref: gen_cross_file_list.py:33-41), so this is the production-relevant
     batch shape."""
-    from optflow_tpu.engine.features_glue import default_aligner
+    from optflow.engine.features_glue import default_aligner
 
     paths = _write_pairs(tmp_path, rng, n_pairs=2)
     d_bat = tmp_path / "bat"
@@ -96,7 +96,7 @@ def test_batched_features_pairs_batch(tmp_path, rng):
     stats = run_job_batched(job_b, pair_batch=4)
     assert stats["batched"] == 2 and stats["sequential"] == 0
 
-    from optflow_tpu.engine.runner import run_job
+    from optflow.engine.runner import run_job
 
     job_s = _job(tmp_path, paths, d_seq, features=2)
     run_job(job_s, aligner=default_aligner)
@@ -158,7 +158,7 @@ def test_device_sample_path_matches_host_sampling(tmp_path, rng):
     the synthetic truth."""
     from PIL import Image
 
-    from optflow_tpu.dist.mesh import make_pair_mesh
+    from optflow.dist.mesh import make_pair_mesh
     from tests.test_tvl1 import translate
 
     # chained TRANSLATED stack: flow between consecutive frames is the
@@ -212,13 +212,29 @@ def test_device_sample_path_matches_host_sampling(tmp_path, rng):
             ), d.mean(axis=1)
 
 
+def test_job_with_retired_repair_margin_key_still_runs(tmp_path, rng):
+    """Job files written for the removed shift-warp repair ladder carry
+    ``repair_margin``; they still load and solve (the key is ignored)."""
+    from optflow.dist.mesh import make_pair_mesh
+
+    paths = _write_pairs(tmp_path, rng, n_pairs=2)
+    job = _job(tmp_path, paths, tmp_path, output_type="random_points",
+               npoints=3, repair_margin=0.25, prefetch=False)
+    stats = run_job_batched(
+        job, sink=JsonlMatchSink(str(tmp_path / "m.jsonl")),
+        mesh=make_pair_mesh(n_pairs_axis=1, n_rows_axis=1),
+    )
+    assert stats["pairs"] == stats["batched"] == 2
+    assert stats["matches"] == 2 * 3
+
+
 def test_device_sample_dummy_match_on_empty_mask(tmp_path, rng):
     """A pair whose frames are entirely background (<= 1.0 intensity)
     must emit the reference's dummy (-1,-1)->(-1,-1) w=0 match through
     the device sampler too (src/optflow.cpp:560-569)."""
     from PIL import Image
 
-    from optflow_tpu.dist.mesh import make_pair_mesh
+    from optflow.dist.mesh import make_pair_mesh
 
     p0 = tmp_path / "z0.png"
     p1 = tmp_path / "z1.png"
@@ -245,134 +261,6 @@ def test_device_sample_dummy_match_on_empty_mask(tmp_path, rng):
     assert m["p"] == [[-1], [-1]] and m["q"] == [[-1], [-1]]
 
 
-def test_device_sample_repair_path(tmp_path, rng, monkeypatch):
-    """Fabricated shift-contract violations must route through the
-    on-device exact repair (gather-warp re-solve + splice + re-sample)
-    and still emit correct matches; on CPU the exact solver equals the
-    solve itself, so results are unchanged while the repair stage runs."""
-    import json
-
-    from PIL import Image
-
-    import optflow_tpu.ops.tvl1_pallas as tp
-    from optflow_tpu.dist.mesh import make_pair_mesh
-    from tests.test_tvl1 import translate
-
-    dx, dy = 1.0, -0.5
-    base = make_fibsem_like(rng, 48, 48)
-    paths = []
-    for i in range(3):
-        im = translate(base, dx * i, dy * i)
-        p = tmp_path / f"r{i}.png"
-        Image.fromarray(np.clip(im, 0, 255).astype(np.uint8)).save(str(p))
-        paths.append(str(p))
-
-    fake_mask = {"n": 0}
-
-    def fabricate():
-        # flag image 0 of every solve
-        n = fake_mask["n"]
-        m = np.zeros(n, bool)
-        if n:
-            m[0] = True
-        return jnp.asarray(m) if n else None
-
-    def fabricate_mxu():
-        # image 0 entered the warp 2 px beyond the contract — past the
-        # default 0.25 px repair margin, so the exact repair must run
-        n = fake_mask["n"]
-        m = np.zeros(n, np.float32)
-        if n:
-            m[0] = 10.0
-        return jnp.asarray(m) if n else None
-
-    import jax.numpy as jnp
-
-    from optflow_tpu.engine import device_group as dg
-
-    orig = dg.solve_group_on_device
-
-    def spy(frames_dev, f0_idx, f1_idx, rois, *a, **kw):
-        fake_mask["n"] = len(rois) * len(f0_idx)
-        return orig(frames_dev, f0_idx, f1_idx, rois, *a, **kw)
-
-    monkeypatch.setattr(dg, "solve_group_on_device", spy)
-    monkeypatch.setattr(tp, "get_last_violation_mask", fabricate)
-    monkeypatch.setattr(tp, "get_last_max_u", fabricate_mxu)
-
-    sink = JsonlMatchSink(str(tmp_path / "m.jsonl"))
-    mesh1 = make_pair_mesh(n_pairs_axis=1, n_rows_axis=1)
-    job = _job(
-        tmp_path, paths, tmp_path, output_type="random_points",
-        npoints=5, rois={"top": 16}, debug=True, prefetch=False,
-    )
-    stats = run_job_batched(job, sink=sink, mesh=mesh1)
-    assert stats["pairs"] == 2
-    assert "repair_s" in stats["timing"], stats["timing"]
-
-    recs = [json.loads(l) for l in
-            open(tmp_path / "m.jsonl").read().splitlines()]
-    for r in recs:
-        m = r["matches"]
-        assert len(m["w"]) == 5 and set(m["w"]) == {1}
-        d = np.asarray(m["q"]) - np.asarray(m["p"])
-        assert np.allclose(d.mean(axis=1), [dx, dy], atol=0.4)
-
-
-def test_device_sample_soft_overshoot_skips_repair(tmp_path, rng,
-                                                   monkeypatch):
-    """A violation whose max|u| is within repair_margin of the contract
-    bound (bounded sub-margin sampling error) must NOT pay the exact
-    re-solve — it is counted as a soft overshoot instead."""
-    import jax.numpy as jnp
-    from PIL import Image
-
-    import optflow_tpu.ops.tvl1_pallas as tp
-    from optflow_tpu.dist.mesh import make_pair_mesh
-    from optflow_tpu.engine import device_group as dg
-    from tests.test_tvl1 import translate
-
-    base = make_fibsem_like(rng, 48, 48)
-    paths = []
-    for i in range(3):
-        im = translate(base, 1.0 * i, 0.0)
-        p = tmp_path / f"s{i}.png"
-        Image.fromarray(np.clip(im, 0, 255).astype(np.uint8)).save(str(p))
-        paths.append(str(p))
-
-    fake = {"n": 0}
-    orig = dg.solve_group_on_device
-
-    def spy(frames_dev, f0_idx, f1_idx, rois, *a, **kw):
-        fake["n"] = len(rois) * len(f0_idx)
-        return orig(frames_dev, f0_idx, f1_idx, rois, *a, **kw)
-
-    monkeypatch.setattr(dg, "solve_group_on_device", spy)
-    monkeypatch.setattr(
-        tp, "get_last_violation_mask",
-        lambda: jnp.asarray(
-            np.eye(1, fake["n"], dtype=bool)[0]
-        ) if fake["n"] else None,
-    )
-    monkeypatch.setattr(
-        tp, "get_last_max_u",
-        lambda: jnp.asarray(
-            np.full(fake["n"], 8.1, np.float32)
-        ) if fake["n"] else None,
-    )
-
-    sink = JsonlMatchSink(str(tmp_path / "m.jsonl"))
-    mesh1 = make_pair_mesh(n_pairs_axis=1, n_rows_axis=1)
-    job = _job(
-        tmp_path, paths, tmp_path, output_type="random_points",
-        npoints=5, rois={"top": 16}, debug=True, prefetch=False,
-    )
-    stats = run_job_batched(job, sink=sink, mesh=mesh1)
-    assert stats["pairs"] == 2
-    assert "repair_s" not in stats["timing"]
-    assert stats.get("soft_overshoots", 0) >= 1
-
-
 def test_device_path_declines_out_of_contract_affine(tmp_path, rng,
                                                      monkeypatch):
     """A features group whose pre-align affine exceeds the shift-warp
@@ -381,8 +269,8 @@ def test_device_path_declines_out_of_contract_affine(tmp_path, rng,
     import jax
     import jax.numpy as jnp
 
-    import optflow_tpu.engine.batch_runner as br
-    from optflow_tpu.dist.mesh import make_pair_mesh
+    import optflow.engine.batch_runner as br
+    from optflow.dist.mesh import make_pair_mesh
 
     paths = _write_pairs(tmp_path, rng, n_pairs=2, h=48, w=48)
 

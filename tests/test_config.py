@@ -5,7 +5,7 @@ JS-style comments)."""
 import gzip
 import json
 
-from optflow_tpu.core.config import (
+from optflow.core.config import (
     JobConfig,
     MatchParams,
     OrbParams,

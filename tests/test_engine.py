@@ -8,12 +8,12 @@ import os
 import numpy as np
 import pytest
 
-from optflow_tpu.core.imgio import read_float_tiff
-from optflow_tpu.engine.rois import Roi, get_rois, resolve_rois, roi_from_array
-from optflow_tpu.engine.sampler import move_pm, random_points
-from optflow_tpu.engine.pair import solve_rois
-from optflow_tpu.engine.runner import FrameCache, run_job
-from optflow_tpu.sinks.store import JsonlMatchSink, NullMatchSink
+from optflow.core.imgio import read_float_tiff
+from optflow.engine.rois import Roi, get_rois, resolve_rois, roi_from_array
+from optflow.engine.sampler import move_pm, random_points
+from optflow.engine.pair import solve_rois
+from optflow.engine.runner import FrameCache, run_job
+from optflow.sinks.store import JsonlMatchSink, NullMatchSink
 from tests.conftest import make_fibsem_like
 
 
@@ -325,7 +325,7 @@ def test_cli_profile_dir_writes_trace(rng, tmp_path):
     import json
     import os
 
-    from optflow_tpu.cli.main import main
+    from optflow.cli.main import main
 
     im0, im1 = _shifted_pair(rng, h=32, w=48, dx=1.0, dy=0.0)
     p0, p1 = tmp_path / "a.png", tmp_path / "b.png"

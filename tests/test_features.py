@@ -5,15 +5,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optflow_tpu.features.detect import (
+from optflow.features.detect import (
     fast_keypoints,
     gaussian_blur,
     hessian_keypoints,
 )
-from optflow_tpu.features.descriptors import orb_descriptors, surf_descriptors
-from optflow_tpu.features.match import knn_match2, ratio_filter
-from optflow_tpu.features.ransac import find_homography
-from optflow_tpu.features.align import find_alignment
+from optflow.features.descriptors import orb_descriptors, surf_descriptors
+from optflow.features.match import knn_match2, ratio_filter
+from optflow.features.ransac import find_homography
+from optflow.features.align import find_alignment
 from tests.conftest import make_fibsem_like
 
 
@@ -111,7 +111,7 @@ def test_knn_match_identity(rng):
 
 
 def test_ratio_filter():
-    from optflow_tpu.features.match import Knn2
+    from optflow.features.match import Knn2
 
     m = Knn2(
         idx=jnp.asarray([0, 1]),
@@ -240,9 +240,9 @@ def test_find_alignment_orb_path(rng):
 def test_engine_integration_feature_prealign(rng, tmp_path):
     """Full pair solve with real feature pre-alignment: a large translation
     (beyond the small pyramid's range) must come back through the affine."""
-    from optflow_tpu.engine.pair import solve_rois
-    from optflow_tpu.engine.rois import resolve_rois
-    from optflow_tpu.engine.features_glue import default_aligner
+    from optflow.engine.pair import solve_rois
+    from optflow.engine.rois import resolve_rois
+    from optflow.engine.features_glue import default_aligner
 
     im0 = make_fibsem_like(rng, 160, 192, smooth=5)
     A = np.array([[1.0, 0.0, -12.0], [0.0, 1.0, 0.0]])
@@ -278,8 +278,8 @@ def test_engine_integration_feature_prealign(rng, tmp_path):
 def test_estimate_orientations_ramp():
     """A pure intensity ramp has gradient direction = ramp direction."""
     import jax.numpy as jnp
-    from optflow_tpu.features.descriptors import estimate_orientations
-    from optflow_tpu.features.detect import Keypoints
+    from optflow.features.descriptors import estimate_orientations
+    from optflow.features.detect import Keypoints
 
     h = w = 64
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -319,10 +319,10 @@ def test_find_alignment_indexed_matches_batched(rng):
     produce the same results as the per-pair batched pipeline."""
     import jax.numpy as jnp
 
-    from optflow_tpu.core.config import (
+    from optflow.core.config import (
         MatchParams, OrbParams, SurfParams, SURF_TYPE,
     )
-    from optflow_tpu.features.align import (
+    from optflow.features.align import (
         find_alignment_batched_device,
         find_alignment_indexed,
     )

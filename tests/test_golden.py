@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optflow_tpu.core.config import TVL1Params
-from optflow_tpu.ops.tvl1 import tvl1_flow
+from optflow.core.config import TVL1Params
+from optflow.ops.tvl1 import tvl1_flow
 
 
 def _golden_pair(h=64, w=96):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from optflow_tpu.core.imgio import (
+from optflow.core.imgio import (
     ImageReadError,
     pad_to,
     read_float_tiff,

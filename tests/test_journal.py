@@ -4,9 +4,9 @@ types, and the runner's timing stats."""
 import numpy as np
 import pytest
 
-from optflow_tpu.engine.journal import JobJournal, pair_key
-from optflow_tpu.engine.runner import run_job
-from optflow_tpu.sinks.store import JsonlMatchSink
+from optflow.engine.journal import JobJournal, pair_key
+from optflow.engine.runner import run_job
+from optflow.sinks.store import JsonlMatchSink
 from tests.conftest import make_fibsem_like
 
 FAST_TV = {"nscales": 2, "warps": 2, "iterations": 25}
@@ -97,7 +97,7 @@ def test_legacy_journal_keys_resume_under_default_params(tmp_path, rng):
     p|q|output_name keys. An upgrade must not re-solve a default-params
     job (ADVICE r2) — the legacy key is accepted as an alias iff the
     effective params ARE the historical defaults."""
-    from optflow_tpu.engine.journal import pair_key_aliases
+    from optflow.engine.journal import pair_key_aliases
 
     im = {"p": "a", "q": "b", "output_name": "n"}
     # default params + default scale -> legacy alias accepted

@@ -4,7 +4,7 @@ Drives deploy/run_pod.py end-to-end — coordinator rendezvous, per-process
 image-list sharding, local-device mesh construction, batched solve, journal
 suffixing — the init/mesh-layout path that single-process virtual-mesh
 tests cannot reach (VERDICT r1 missing #5). Uses the CPU backend with 2
-virtual devices per process so no TPU pod is needed, exactly the strategy
+virtual devices per process so no accelerator is needed, exactly the strategy
 SURVEY.md §4 prescribes.
 """
 

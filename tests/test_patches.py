@@ -1,4 +1,4 @@
-"""features.patches: MXU patch extraction/sampling vs the gather oracle.
+"""features.patches: matmul patch extraction/sampling vs the gather oracle.
 
 The extractor replaces per-keypoint bilinear gathers (ops.warp
 .bilinear_sample under vmap) with matmul contractions; these tests pin
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from optflow_tpu.features.patches import extract_patches, sample_patches
-from optflow_tpu.ops.warp import bilinear_sample
+from optflow.features.patches import extract_patches, sample_patches
+from optflow.ops.warp import bilinear_sample
 
 
 @pytest.fixture

@@ -11,7 +11,7 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 import numpy as np
 import pytest
 
-from optflow_tpu.sinks.render_client import RenderClient
+from optflow.sinks.render_client import RenderClient
 
 TILESPECS = {
     1.0: [
@@ -102,7 +102,7 @@ def test_matches_exist_unreachable_reports_absent(capsys):
 
 def test_gen_pairs_live_stack(render_ws, tmp_path):
     """gen-pairs --stack pulls the tile map from the mocked service."""
-    from optflow_tpu.tools.gen_pairs import main
+    from optflow.tools.gen_pairs import main
 
     host, port = render_ws
     cross = tmp_path / "cross.json.gz"
@@ -147,8 +147,8 @@ def test_gen_pairs_live_stack(render_ws, tmp_path):
 def test_upload_matches_live_stack(render_ws, tmp_path, monkeypatch):
     """upload-matches --stack pulls tile geometry from the mock and skips
     group pairs the collection already holds (idempotence)."""
-    from optflow_tpu.core.imgio import write_float_tiff
-    from optflow_tpu.tools import upload_matches
+    from optflow.core.imgio import write_float_tiff
+    from optflow.tools import upload_matches
 
     host, port = render_ws
     flow = np.zeros((64, 64), np.float32)

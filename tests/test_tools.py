@@ -7,11 +7,11 @@ import json
 import numpy as np
 import pytest
 
-from optflow_tpu.core.config import load_job
-from optflow_tpu.core.imgio import write_float_tiff
-from optflow_tpu.sinks.store import JsonlMatchSink
-from optflow_tpu.tools.gen_pairs import defaults, gen_file_list, logpath
-from optflow_tpu.tools.upload_matches import gen_matches
+from optflow.core.config import load_job
+from optflow.core.imgio import write_float_tiff
+from optflow.sinks.store import JsonlMatchSink
+from optflow.tools.gen_pairs import defaults, gen_file_list, logpath
+from optflow.tools.upload_matches import gen_matches
 
 
 def _write_cross(path, n_sections=6, z_dist=2):
@@ -149,8 +149,8 @@ def test_end_to_end_gen_solve_convert_align(tmp_path, rng):
     per-section drift."""
     import scipy.ndimage as ndi
     from PIL import Image
-    from optflow_tpu.engine.runner import run_job
-    from optflow_tpu.align.global_solve import solve_translation_alignment
+    from optflow.engine.runner import run_job
+    from optflow.align.global_solve import solve_translation_alignment
     from tests.conftest import make_fibsem_like
 
     # 4 sections drifting +2 px in x per section

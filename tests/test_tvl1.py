@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from optflow_tpu.core.config import TVL1Params
-from optflow_tpu.ops.pyramid import build_pyramid, pyramid_shapes, upscale_flow
-from optflow_tpu.ops.tvl1 import tvl1_flow
+from optflow.core.config import TVL1Params
+from optflow.ops.pyramid import build_pyramid, pyramid_shapes, upscale_flow
+from optflow.ops.tvl1 import tvl1_flow
 from tests.conftest import make_fibsem_like
 
 # A cheaper parameter set for tests (same structure, fewer iterations).

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optflow_tpu.ops.warp import (
+from optflow.ops.warp import (
     affine_warp,
     bilinear_sample,
     centered_gradient,
@@ -137,132 +137,13 @@ def test_affine_warp_output_shape(rng):
     assert np.allclose(np.asarray(out)[:8, :8], im, atol=1e-5)
 
 
-def test_shift_warp_matches_gather_warp(rng):
-    """The shift-compose warp (the TPU production re-warp) agrees with the
-    gather warp on smooth bounded flows: exact where the flow is locally
-    constant across the y-shift, O(|du/dy|) sub-pixel sampling error
-    elsewhere."""
-    import jax
-    import scipy.ndimage as ndi
-
-    from optflow_tpu.ops.warp import (
-        centered_gradient,
-        warp_backward,
-        warp_backward_shift,
-    )
-    from tests.conftest import make_fibsem_like
-
-    n, h, w = 2, 64, 96
-    i0 = jnp.stack([jnp.asarray(make_fibsem_like(rng, h, w)) for _ in range(n)])
-    i1 = jnp.roll(i0, 1, axis=2)
-    i1x, i1y = jax.vmap(centered_gradient)(i1)
-    u1 = jnp.asarray(np.stack([
-        ndi.gaussian_filter(rng.standard_normal((h, w)), 12) * 30
-        for _ in range(n)
-    ]).astype(np.float32))
-    u2 = 0.5 * u1
-    assert float(jnp.abs(u1).max()) < 8.0
-
-    ga = jax.vmap(warp_backward)(i0, i1, i1x, i1y, u1, u2)
-    sh = warp_backward_shift(i0, i1, i1x, i1y, u1, u2)
-    # this fixture's |du/dy| (~1 px/px) is an order beyond TV-L1's
-    # regularized fields, so the max bounds are worst-case envelopes; the
-    # means are the production-relevant agreement measure
-    for k, tol_mean, tol_max in ((0, 0.5, 15.0), (1, 0.08, 2.0), (4, 2.0, 80.0)):
-        d = np.abs(np.asarray(ga[k]) - np.asarray(sh[k]))[:, 9:-9, 9:-9]
-        assert float(d.mean()) < tol_mean, (k, d.mean())
-        assert float(d.max()) < tol_max, (k, d.max())
-    # constant flow: bit-exact (no cross-row flow variation)
-    uc = jnp.full((n, h, w), 1.25, jnp.float32)
-    ga = jax.vmap(warp_backward)(i0, i1, i1x, i1y, uc, -uc)
-    sh = warp_backward_shift(i0, i1, i1x, i1y, uc, -uc)
-    assert np.allclose(np.asarray(ga[0]), np.asarray(sh[0]), atol=1e-5)
-
-
-def test_shift_warp_guard_is_per_image(rng):
-    """One outlier pair (|u| beyond the shift-warp contract) must NOT drop
-    the whole batch to the gather warp: the other image keeps the fast
-    path bit-for-bit, and the fallback telemetry counts only the outlier's
-    sweeps (r3 verdict #4)."""
-    from optflow_tpu.core.config import TVL1Params
-    from optflow_tpu.ops.tvl1_pallas import tvl1_flow_level_pallas_batched
-    from tests.conftest import make_fibsem_like
-    from tests.test_tvl1 import translate
-
-    h, w = 32, 48
-    im0a = make_fibsem_like(rng, h, w)
-    im1a = translate(im0a, 1.5, -0.5)
-    im0b = make_fibsem_like(rng, h, w)
-    im1b = translate(im0b, 1.0, 1.0)
-    i0 = jnp.stack([jnp.asarray(im0a), jnp.asarray(im0b)])
-    i1 = jnp.stack([jnp.asarray(im1a), jnp.asarray(im1b)])
-    p = TVL1Params(nscales=1, warps=2, iterations=10)
-
-    # image 1 enters the level with a 12 px flow — beyond SHIFT_WARP_MAX
-    u1 = jnp.stack([
-        jnp.zeros((h, w), jnp.float32),
-        jnp.full((h, w), 12.0, jnp.float32),
-    ])
-    u2 = jnp.zeros((2, h, w), jnp.float32)
-    a1, a2, _, fb = tvl1_flow_level_pallas_batched(
-        i0, i1, u1, u2, p, interpret=True, shift_warp=True,
-        return_stats=True,
-    )
-    # only the outlier image falls back; its flow shrinks toward truth so
-    # later sweeps may rejoin the fast path — at least the first sweep
-    # counts, and never more than warps x 1 image
-    assert 1 <= int(fb) <= p.warps, int(fb)
-
-    # the in-contract image is bit-identical to a solo fast-path solve
-    b1, b2, _ = tvl1_flow_level_pallas_batched(
-        i0[:1], i1[:1], u1[:1], u2[:1], p, interpret=True, shift_warp=True,
-    )
-    assert np.array_equal(np.asarray(a1[0]), np.asarray(b1[0]))
-    assert np.array_equal(np.asarray(a2[0]), np.asarray(b2[0]))
-
-    # an all-in-contract batch reports zero fallbacks
-    _, _, _, fb0 = tvl1_flow_level_pallas_batched(
-        i0, i1, jnp.zeros_like(u2), u2, p, interpret=True, shift_warp=True,
-        return_stats=True,
-    )
-    assert int(fb0) == 0
-
-
-def test_pallas_flow_with_shift_warp_converges(rng):
-    """Full coarse-to-fine solve with the shift warp recovers a known
-    translation to the same EPE as the gather warp (the end-to-end quality
-    gate for the TPU production configuration)."""
-    from optflow_tpu.core.config import TVL1Params
-    from optflow_tpu.ops.tvl1_pallas import tvl1_flow_level_pallas_batched
-    from tests.conftest import make_fibsem_like
-    from tests.test_tvl1 import translate
-
-    im0 = make_fibsem_like(rng, 64, 96)
-    im1 = translate(im0, 2.0, -1.0)
-    p = TVL1Params(nscales=1, warps=3, iterations=60)
-    u = jnp.zeros((1, 64, 96), jnp.float32)
-    u1, u2, _ = tvl1_flow_level_pallas_batched(
-        jnp.asarray(im0)[None], jnp.asarray(im1)[None], u, u, p,
-        interpret=True, shift_warp=True,
-    )
-    inner = np.s_[0, 8:-8, 8:-8]
-    epe = float(
-        jnp.sqrt((u1[inner] - 2.0) ** 2 + (u2[inner] + 1.0) ** 2).mean()
-    )
-    assert epe < 0.35, epe
-
-
 def test_affine_warp_shift_matches_gather(rng):
-    """The shift-compose affine warp (no gathers — the TPU fast path for
-    frame pre-warping and map composition, r5) must match the gather
-    warp: exactly for pure translations, and to sub-intensity tolerance
+    """The shift-compose affine warp (no gathers; used for frame
+    pre-warping and map composition) must match the gather warp: exactly for pure translations, and to sub-intensity tolerance
     for small rotations/shears (its 2-pass factorization evaluates the
     X weights at the tap row — an error bounded by |shear| * s_max
-    sample positions, same approximation the TV-L1 shift warp makes)."""
-    import jax
-    import jax.numpy as jnp
-
-    from optflow_tpu.ops.warp import affine_warp, affine_warp_shift
+    sample positions)."""
+    from optflow.ops.warp import affine_warp, affine_warp_shift
     from tests.conftest import make_fibsem_like
 
     im = jnp.asarray(make_fibsem_like(rng, 96, 128))
